@@ -1,9 +1,9 @@
-"""icpslam_tpu — a TPU-native LIDAR SLAM engine in JAX/XLA/Pallas.
+"""icpslam_tpu — a LIDAR SLAM engine in JAX/XLA/Pallas, run on NVIDIA GPUs.
 
 A from-scratch reimplementation of the capabilities of the classic C++/ROS
 ``icpslam`` pipeline (GICP scan-to-scan odometry, octree scan-to-map
 refinement, g2o pose-graph back-end) as a functional, fixed-shape,
-jit-compiled pipeline designed for TPU hardware:
+jit-compiled pipeline:
 
 - ``geometry``  — batched SE(3)/quaternion algebra (replaces Eigen + Pose6DOF)
 - ``cloud``     — fixed-capacity padded point clouds + voxel-grid downsampling
@@ -25,10 +25,10 @@ import jax as _jax
 
 # SLAM is geometry-bound, not FLOPs-bound: every matmul in this package is
 # either tiny (3x3/6x6 pose algebra, Jacobian/Hessian einsums) or a fused
-# Pallas kernel with its own explicit precision. TPU's DEFAULT matmul
-# precision truncates f32 operands to bf16 (7 mantissa bits), which
-# measurably mis-selects ~17% of NN correspondences, corrupts squared
-# distances by O(|t||q|/2^8) at map-scale coordinates, and degrades every
+# kernel with its own explicit precision. An accelerator's DEFAULT f32
+# matmul precision truncates operands (TF32 on the GPU keeps 10 mantissa
+# bits), which mis-selects NN correspondences, corrupts squared distances
+# by O(|t||q|/2^10) at map-scale coordinates, and degrades every
 # rotation-matrix product — for negligible speed gain at these shapes.
 # Full-f32 is the only correct default here; kernels that can tolerate
 # lower precision must request it explicitly.

@@ -1,6 +1,6 @@
 """Fixed-capacity padded point clouds.
 
-TPU/XLA requires static shapes, so a cloud is a ``(capacity, 3)`` float array
+XLA compiles for static shapes, so a cloud is a ``(capacity, 3)`` float array
 plus a ``(capacity,)`` validity mask; every op is mask-aware. This replaces
 PCL's dynamically-sized ``PointCloud<PointXYZ>`` used throughout the
 reference (e.g. ``/root/reference/src/icpslam/icp_odometer.cpp:96-101``).

@@ -2,7 +2,7 @@
 
 ``voxel_downsample`` replaces PCL's ``VoxelGrid`` filter
 (``/root/reference/src/icpslam/icp_odometer.cpp:96-101``): one centroid per
-occupied voxel. The TPU formulation is sort-based — pack voxel coordinates
+occupied voxel. The formulation is sort-based — pack voxel coordinates
 into one 32-bit key, sort keys with the point components as payload, and
 reduce each sorted segment to its centroid via cumulative-sum differences
 — all static shapes, no host round-trip, no colliding scatters.
@@ -60,7 +60,7 @@ _PACK_BITS = (11, 11, 10)
 
 # Invalid points carry int32 max as their key. Validity is *encoded in the
 # key itself* (key != _INVALID_KEY) so the sort needs no separate mask
-# payload — one fewer operand, measured 1.27 → 1.01 ms at 32k on v5e. The
+# payload — one fewer sort operand. The
 # single valid bit pattern that would collide (rel cell 1023/2047/1023)
 # is remapped to its −z neighbor below — one more fringe-merge cell on
 # top of the clamping caveat.
@@ -94,12 +94,12 @@ def voxel_downsample(
     ``num_voxels > capacity`` (voxels beyond capacity are dropped in sorted
     coordinate order; SURVEY.md "no silent caps").
 
-    TPU formulation: one multi-operand ``lax.sort`` carries the point
+    Formulation: one multi-operand ``lax.sort`` carries the point
     components with the packed keys (no post-sort index gathers), segment
     sums come from cumulative-sum differences at segment boundaries, and
-    the only scatter is a *collision-free* start-position scatter — the
-    colliding per-point ``.at[].add`` this replaces was ~55% of the
-    filter's runtime (and index-gathering the payload another ~30%).
+    the only scatter is a *collision-free* start-position scatter instead
+    of a colliding per-point ``.at[].add`` (and no index-gather of the
+    payload).
     """
     coords = voxel_coords(cloud.points, resolution, cloud.mask)
     keys = _packed_keys(coords, cloud.mask)

@@ -42,8 +42,8 @@ class IcpConfig:
     # GICP covariance regularization (PCL uses epsilon-inflated plane covs)
     # 'knn': PCL-style k nearest neighbors (default — smoother normals,
     # lets ICP early-exit); 'radius': fixed-radius moment statistics in
-    # one fused Pallas pass (cheaper per call; normals are noisier at the
-    # radius cutoff, which tends to cost ICP iterations). With
+    # one blocked pass with no top-k (normals are noisier at the radius
+    # cutoff, which tends to cost ICP iterations). With
     # covariance_sigma > 0 the radius pass applies a Gaussian distance
     # taper — near neighbors dominate like in kNN mode, at radius cost.
     covariance_mode: str = "knn"
@@ -55,12 +55,10 @@ class IcpConfig:
     mode: str = "plane"
     # re-run the NN correspondence search every n-th ICP iteration and
     # reuse the matches (re-evaluated at the updated pose) in between.
-    # 1 = PCL-parity (fresh matches every iteration). Measured on a v5e
-    # chip (bench.py --refresh): >1 is *slower* (203-208 vs 240 scans/s)
-    # — the fused Pallas NN kernel is cheap enough that skipping sweeps
-    # loses to the stricter epsilon exit (a small step against stale
-    # matches can't end the loop, so iterations grow). Kept as a knob
-    # for CPU/interpret runs where NN dominates.
+    # 1 = PCL-parity (fresh matches every iteration). >1 skips sweeps
+    # but a small step against stale matches can't end the loop, so
+    # iterations grow; not measured on the GPU. Kept as a knob for CPU
+    # runs where NN dominates.
     correspondence_refresh: int = 1
     # True: fitness from an extra correspondence pass at the final pose
     # (exact PCL getFitnessScore semantics); False (default): reuse the
@@ -183,8 +181,8 @@ class SlamConfig:
     # NN cloud) and only execute when the correction magnitude says the
     # pairing was computed at a meaningfully wrong pose.
     mapping_requery_rounds: int = 3
-    # 'point': append-only map + exact brute-force NN (Pallas/MXU — faster
-    # AND more accurate than the reference's approx octree descent on TPU)
+    # 'point': append-only map + exact brute-force NN (the fused NN kernel
+    # on the GPU — exact, unlike the reference's approx octree descent)
     # 'voxel': sorted voxel hash with 3^3-neighborhood approx lookups
     # 'sharded': the voxel map spatially sharded across a device mesh
     #   (map_shards devices; pass the mesh to slam_step) — map capacity
@@ -262,17 +260,16 @@ class SlamConfig:
     # drift) while cutting the late-mission solve cost 40%.
     graph_solver_iterations: int = 3
     # linear solver inside GN/LM: 'direct' (dense-block Cholesky — with
-    # bucketing below it solves at the live size: 3.9 ms at 30 live
-    # keyframes vs 42 ms at full 512 capacity on v5e), 'pcg' (matrix-free
-    # block-Jacobi CG — wins at full capacity, ~2x direct at K=512, and
-    # scales with edges not capacity²), 'schur' (chunked elimination), or
-    # 'auto' (default: per-bucket direct up to K=256, PCG above — young
-    # graphs get the cheap factorization, late-mission solves the ~2x
-    # faster CG; VERDICT r2 item 7).
+    # bucketing below it solves at the live size, not the capacity),
+    # 'pcg' (matrix-free block-Jacobi CG — scales with edges, not
+    # capacity²), 'schur' (chunked elimination), or 'auto' (default:
+    # per-bucket direct up to K=256, PCG above — young graphs get the
+    # cheap factorization, late-mission solves the CG; the crossover is
+    # not yet measured on the GPU).
     # 'dist-direct' / 'dist-pcg' / 'dist-schur' / 'dist-auto' run the SAME
     # windowed solve edge-sharded across the device mesh passed to
     # slam_step (parallel/dist_graph.py): per-edge linearization and
-    # assembly split over devices, reduced with psum over ICI — the
+    # assembly split over devices, reduced with psum over the mesh — the
     # reference's one blocking g2o call (icpslam.cpp:171) living on the
     # mesh. Requires a mesh; trajectory-identical to the replicated
     # solver (tests/test_sharded_slam.py). Incremental *window* solves
@@ -328,7 +325,7 @@ class SlamConfig:
     # anchors carry global information and are kept unless very redundant
     keyframe_loop_edge_penalty: float = 10.0
 
-    # --- static capacities (TPU padded shapes) ---
+    # --- static capacities (padded shapes) ---
     max_points: int = 8192            # downsampled points per scan
     max_raw_points: int = 131072      # raw scan capacity before voxel filter
     max_map_points: int = 262144      # voxel-map capacity
@@ -455,7 +452,7 @@ def kitti_config(**overrides) -> SlamConfig:
     synthetic sequence). The reference's room-scale yaml defaults don't
     transfer to 80 m-range scans — this promotes the velodyne guidance it
     does give (``config/icpslam.yaml:13`` '20 for velodyne' cloud
-    skipping becomes unnecessary here: the TPU pipeline keeps up at 10 Hz)
+    skipping is not applied here: every scan is processed)
     and scales the geometric knobs to urban motion:
 
     - voxel leaf 0.4 m (KITTI-typical downsample, ~8-16k pts/scan)

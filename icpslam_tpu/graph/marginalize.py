@@ -3,7 +3,7 @@
 The reference grows its keyframe vector without bound
 (``/root/reference/src/icpslam/icpslam.cpp:88``, octree likewise at
 ``src/icpslam/octree_mapper.cpp:63-70``) — unbounded memory is its answer
-to long missions. Under static TPU shapes the keyframe store is a fixed
+to long missions. Under static shapes the keyframe store is a fixed
 capacity, and before r5 it simply froze when full (no new nodes, no new
 loop closures — measured ATE degradation 0.49→1.13 m on the 2000-scan
 capacity-exhaustion endurance run). This module frees slots instead:

@@ -1,7 +1,7 @@
 """SE(3) pose-graph optimization: batched Gauss-Newton / Levenberg-Marquardt.
 
 Replaces g2o's sparse optimizer (used via ``pose_graph_utils::PoseGraphG2O``
-at ``/root/reference/src/icpslam/icpslam.cpp:77,84,171``). The TPU
+at the reference's ``src/icpslam/icpslam.cpp:77,84,171``). The
 formulation is dense-block and batched:
 
 - residual per edge: ``r = log(Z⁻¹ · X_i⁻¹ · X_j)`` ∈ se(3), with the
@@ -11,7 +11,7 @@ formulation is dense-block and batched:
   poses (SE(3) right-Jacobian inverse; autodiff kept as a test oracle)
 - normal equations assembled as a (K, 6, K, 6) block tensor with
   scatter-adds — for keyframe-scale graphs (K ≤ ~1k) the dense 6K×6K
-  Cholesky runs on the MXU faster than any sparse code would
+  Cholesky maps onto dense linear algebra the accelerator runs well
 - gauge freedom fixed by a strong prior on node 0 (g2o's setFixed analog)
 - both solver backends of the reference's intent (launch arg
   ``optimization_backend``): plain GN and LM with adaptive damping
@@ -385,8 +385,8 @@ def _solve_and_update(nodes, H, b, damping, node_mask):
 def resolve_linear_solver(linear_solver: str, n_nodes: int) -> str:
     """Resolve 'auto' to a concrete solver: dense-block Cholesky up to
     K=256, matrix-free PCG above (the factorization is cubic in K and
-    loses past the crossover: 42 ms direct vs ~20 ms PCG at K=512 on
-    v5e). Single source of truth for the local AND distributed solvers —
+    loses past a crossover, not yet measured on the GPU). Single source
+    of truth for the local AND distributed solvers —
     K is static, so the choice compiles away."""
     if linear_solver == "auto":
         return "direct" if n_nodes <= 256 else "pcg"
@@ -419,8 +419,8 @@ def optimize(
     (chunked block elimination: D parallel interior factorizations + one
     small separator solve; see ``graph/schur.py``), or 'auto' (direct up
     to K=256, PCG above — the dense factorization is cubic in K and loses
-    to matrix-free CG at full 512-keyframe capacity: 42 ms vs ~20 ms
-    measured on v5e; K is static so the choice compiles away)."""
+    to matrix-free CG at full capacity; K is static so the choice
+    compiles away)."""
     linear_solver = resolve_linear_solver(linear_solver, nodes.t.shape[0])
     c0 = graph_cost(nodes, edges)
     pcg = linear_solver == "pcg"

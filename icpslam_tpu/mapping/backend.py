@@ -1,4 +1,4 @@
-"""Map-backend dispatch: 'point' (append-only + exact NN, TPU-fast),
+"""Map-backend dispatch: 'point' (append-only + exact NN, the default),
 'voxel' (sorted voxel hash with spatial lookups, reference-style), or
 'sharded' (the voxel hash spatially sharded over a device mesh).
 
@@ -9,7 +9,7 @@ device axis (``(D, ...)`` leaves, one voxel-hash shard per device); its
 operations take the ``mesh`` the pipeline runs under and use
 ``shard_map`` + collectives (``parallel/sharded_map.py``) — the
 streaming analog of the reference's single global octree
-(``/root/reference/src/icpslam/octree_mapper.cpp:19``) at pod scale.
+(``src/icpslam/octree_mapper.cpp:19`` of the reference) across cards.
 """
 
 from __future__ import annotations
@@ -137,17 +137,14 @@ def query_nn_with_covs(
     points: jnp.ndarray,
     mask: jnp.ndarray,
     config: SlamConfig,
-    prune_beyond: float | None = None,
     mesh: Optional[Mesh] = None,
 ):
     """NN query returning stored covariances when the backend carries them.
 
     Returns ``(MapNNResult, covs_or_None)`` — ``covs`` is packed (6, Q) in
     the *map* frame for the point backend, ``None`` for the voxel/sharded
-    backends (whose callers recompute from the NN cloud). ``prune_beyond``
-    is the point backend's static don't-care radius license (see
-    ``point_map.exact_nn_with_covs``).
+    backends (whose callers recompute from the NN cloud).
     """
     if isinstance(map_, pm.PointMap):
-        return pm.exact_nn_with_covs(map_, points, mask, prune_beyond=prune_beyond)
+        return pm.exact_nn_with_covs(map_, points, mask)
     return query_nn(map_, points, mask, config, mesh=mesh), None

@@ -1,10 +1,10 @@
-"""Append-only point map with distance-gated dedup — the TPU-fast backend.
+"""Append-only point map with distance-gated dedup — the default backend.
 
 The sorted ``VoxelMap`` maintains a spatial index so CPU-style voxel
-lookups work; but on TPU the fused brute-force NN kernel answers map
-queries faster than any index (``ops.pallas.nn_kernel``), which makes the
-index maintenance (sort/merge scatters) the only remaining cost. This
-backend drops it entirely:
+lookups work; but a brute-force exact NN over the live map (the fused
+kernel ``ops.pallas.nn_kernel`` on the GPU) answers map queries without
+any index, which leaves index maintenance (sort/merge scatters) as pure
+cost. This backend drops it entirely:
 
 - the map is a flat (C, 3) array + size; insertion appends
 - dedup is *distance-gated*: a candidate point is added only if no
@@ -175,27 +175,23 @@ def insert_with_nn(
 
 
 def exact_nn(pmap: PointMap, points: jnp.ndarray, mask: jnp.ndarray) -> MapNNResult:
-    """Exact NN of query points against the map (Pallas kernel on TPU).
+    """Exact NN of query points against the map (fused kernel on the GPU).
 
     The append-only map is prefix-filled, so the kernel sweeps only the
-    live tiles — query cost scales with map *fill*, not capacity."""
+    live prefix — query cost scales with map *fill*, not capacity."""
     res, _ = _exact_nn_idx(pmap, points, mask)
     return res
 
 
 def exact_nn_with_covs(
     pmap: PointMap, points: jnp.ndarray, mask: jnp.ndarray,
-    prune_beyond: float | None = None,
 ) -> Tuple[MapNNResult, jnp.ndarray]:
     """Exact NN plus the stored (map-frame) covariance of each winner.
 
     Returns ``(MapNNResult, covs packed (6, Q))`` — identity covariance
-    where nothing was found. ``prune_beyond``: static squared don't-care
-    radius forwarded to the kernel (results exact within it) — callers
-    whose downstream gates discard farther matches anyway (ICP
-    correspondence gate, insert dedup) pass the larger of the two.
+    where nothing was found.
     """
-    res, idx = _exact_nn_idx(pmap, points, mask, prune_beyond=prune_beyond)
+    res, idx = _exact_nn_idx(pmap, points, mask)
     packed = pmap.covs[:, idx]  # (6, Q)
     eye6 = jnp.asarray(_EYE6, pmap.covs.dtype)
     return res, jnp.where(res.found[None, :], packed, eye6[:, None])
@@ -203,11 +199,9 @@ def exact_nn_with_covs(
 
 def _exact_nn_idx(
     pmap: PointMap, points: jnp.ndarray, mask: jnp.ndarray,
-    prune_beyond: float | None = None,
 ) -> Tuple[MapNNResult, jnp.ndarray]:
     res = nn_ops.nearest_neighbors(
         points, pmap.points, pmap.occupancy_mask(), valid_len=pmap.size,
-        prune_beyond=prune_beyond,
     )
     found = mask & jnp.isfinite(res.dist2)
     return (

@@ -63,7 +63,7 @@ class RefineResult(NamedTuple):
 
 
 def _rotate_covs(covs6: jnp.ndarray, R: jnp.ndarray) -> jnp.ndarray:
-    """R C Rᵀ for packed (6, N) covariances (component form, full-lane VPU)."""
+    """R C Rᵀ for packed (6, N) covariances (component form, elementwise)."""
     return jnp.stack(rotate_sym3_comps(R, tuple(covs6[i] for i in range(6))))
 
 
@@ -138,20 +138,12 @@ def refine_and_grow(
         )
 
     def refine(_):
-        # the two consumers of this query gate at max_correspondence
-        # (registration) and map_resolution (insert dedup): matches beyond
-        # both are discarded, so license the kernel to prune tiles there
-        prune = float(
-            max(icfg.max_correspondence_distance, res_m) ** 2
-        )
-
         def one_round(pose):
             """Map query at ``pose`` + one registration against the NN
             cloud; returns the correction in the robot frame."""
             in_map = pc.transform(pose, scan)
             nn, map_covs = map_backend.query_nn_with_covs(
-                map_, in_map.points, in_map.mask, config,
-                prune_beyond=prune, mesh=mesh,
+                map_, in_map.points, in_map.mask, config, mesh=mesh,
             )
             # NN points back into the robot frame (reference ``:149``)
             inv = se3.inverse(pose)

@@ -12,7 +12,7 @@ Replaces PCL's ``OctreePointCloudSearch`` used by the reference's
   single-leaf descent while being fully vectorized
 - full reset (``resetMap``, ``:56-60``)
 
-TPU formulation: the map is a fixed-capacity array of integer voxel
+Formulation: the map is a fixed-capacity array of integer voxel
 coordinates kept lexicographically sorted (empty slots hold a +SENTINEL key
 and sort last). Membership and neighbor queries are vectorized binary
 searches (log₂C rounds of gathers); insertion concatenates the deduped new
@@ -113,10 +113,9 @@ def insert(
     voxels already occupied keep their existing point — matching the
     reference's first-wins semantics (``octree_mapper.cpp:66-68``).
 
-    (Benchmarked against a merge-by-rank scatter formulation on v5e: the
-    concatenate + lexsort below wins — TPU scatters of map-sized arrays
-    are slower than the XLA sort. The ``point_map`` backend skips sorted
-    maintenance entirely and is the default on TPU.)
+    (A concatenate + lexsort, not a merge-by-rank scatter of map-sized
+    arrays. The ``point_map`` backend skips sorted maintenance entirely
+    and is the default.)
     """
     C = vmap_.capacity
     # one representative per incoming voxel

@@ -2,15 +2,15 @@
 
 PCL's GICP estimates a covariance from each point's k nearest neighbors and
 regularizes its eigenvalues to ``(1, 1, ε)`` — treating every local surface
-patch as a disk (GICP, Segal et al.). The TPU formulation computes all
-covariances at once: blocked k-NN (MXU matmuls) → neighbor gather →
-closed-form symmetric-3×3 eigen-solve → eigenvalue replacement.
+patch as a disk (GICP, Segal et al.). Here all covariances are computed at
+once: blocked k-NN (distance matmuls) → neighbor gather → closed-form
+symmetric-3×3 eigen-solve → eigenvalue replacement.
 
 Covariances are returned **components-first**: a ``(6, N)`` array packed as
 ``[xx, xy, xz, yy, yz, zz]`` (see ``ops.linalg3.mat_to_sym6``). The batch
-axis rides the 128-wide TPU lanes, so the whole pipeline — estimation here,
-fusion/inversion inside ``ops.icp`` — runs on full VPU tiles with no
-``(N, 3, 3)`` tile-padding traffic. Convert with ``linalg3.sym6_to_mat``
+axis is the last, contiguous one, so the whole pipeline — estimation here,
+fusion/inversion inside ``ops.icp`` — runs elementwise over (N,) vectors
+with no ``(N, 3, 3)`` intermediates. Convert with ``linalg3.sym6_to_mat``
 when a dense matrix view is needed.
 """
 
@@ -58,7 +58,7 @@ def gicp_covariances(
     k: int = 10,
     epsilon: float = 1e-3,
     block: int = 512,
-    approx: bool = True,
+    precision=jax.lax.Precision.HIGH,
 ) -> jnp.ndarray:
     """GICP-regularized covariances, packed (6, N), for every cloud point.
 
@@ -66,23 +66,18 @@ def gicp_covariances(
     ``U diag(ε,1,1) Uᵀ`` depends only on the surface normal n (the
     smallest eigenvector), since it equals ``I − (1−ε)·n nᵀ``. The normal
     comes from a closed-form symmetric-3×3 eigen-solve (``ops.linalg3``) —
-    no LAPACK ``eigh`` in the per-scan hot path — and neighbor search uses
-    the TPU-native ``approx_max_k`` by default (exact top-k when
-    ``approx=False``).
+    no LAPACK ``eigh`` in the per-scan hot path — and neighbor search is
+    the exact blocked k-NN (``ops.nn.knn``).
 
     Padding points get identity covariances (they are masked out of the
-    registration cost anyway).
+    registration cost anyway). ``precision`` is that of the neighbor
+    distance product: neighborhood statistics tolerate a reduced-precision
+    product (``chip_smoke.py`` checks the normals against HIGHEST).
     """
     pts = cloud.points
     dtype = pts.dtype
-    # statistics tolerate approximate neighbors: HIGH (3-pass bf16)
-    # distances + 0.9 recall cut the stage 1.38->0.84 ms/scan on v5e
-    # with normals matching exact selection (median |n.n'| = 1.0,
-    # 5th percentile 0.998 at bench sizes)
     idx, d2 = nn_ops.knn(
-        pts, pts, cloud.mask, k=k, block=block, approx=approx,
-        recall_target=0.9 if approx else 0.95,
-        precision=jax.lax.Precision.HIGH,
+        pts, pts, cloud.mask, k=k, block=block, precision=precision,
     )
 
     # Gather neighbors as (N, k, 3) rows — XLA lowers row gathers well —
@@ -113,6 +108,82 @@ def gicp_covariances(
     return _regularize_comps(comps, good, epsilon, dtype)
 
 
+def radius_moments(
+    query: jnp.ndarray,
+    target: jnp.ndarray,
+    target_mask: jnp.ndarray,
+    radius: float,
+    sigma: float = 0.0,
+    block: int = 512,
+):
+    """Per-query moments of the masked targets within ``radius``.
+
+    Returns ``(count (N,), mean (N, 3), cov (N, 3, 3))``: the neighbor
+    count and the mean and centered second moment (population covariance)
+    of the in-radius targets; zero count → zero mean/cov. ``sigma > 0``
+    replaces the hard indicator with a radius-truncated Gaussian weight
+    ``exp(−d²/2σ²)`` (count is then the weight sum Σw). One blocked pass:
+    per query block, the distance matmul, the weights, and one
+    ``feats @ wᵀ`` product accumulate [1, x, y, z, xx, yy, zz, xy, xz, yz].
+    """
+    # center on the query centroid: membership and covariance are
+    # translation-invariant, and small coordinates keep E[ppᵀ] − μμᵀ from
+    # cancelling when |p| ≫ the neighborhood scale
+    center = jnp.mean(query, axis=0, keepdims=True)
+    query = query - center
+    target = target - center
+    tn2 = jnp.sum(target * target, axis=-1)
+    tn2 = jnp.where(target_mask, tn2, jnp.inf)
+    n = query.shape[0]
+    npad = (n + block - 1) // block * block
+    qpad = jnp.pad(query, ((0, npad - n), (0, 0)))
+    qblocks = qpad.reshape(npad // block, block, 3)
+    r2 = radius * radius
+    inv2s2 = 0.0 if sigma <= 0 else 1.0 / (2.0 * float(sigma) ** 2)
+
+    x, y, z = target[:, 0], target[:, 1], target[:, 2]
+    feats = jnp.stack(
+        [jnp.ones_like(x), x, y, z, x * x, y * y, z * z, x * y, x * z, y * z]
+    )  # (10, M)
+
+    def one(qb):
+        cross = jnp.dot(
+            qb, target.T, preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        )
+        d2 = jnp.sum(qb * qb, -1)[:, None] - 2.0 * cross + tn2[None, :]
+        inside = d2 < r2
+        if inv2s2 > 0.0:
+            w = jnp.where(inside, jnp.exp(-jnp.minimum(d2, r2) * inv2s2), 0.0)
+        else:
+            w = inside.astype(jnp.float32)
+        return jnp.dot(feats, w.T, preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)  # (10, B)
+
+    acc = jax.lax.map(one, qblocks)  # (nb, 10, B)
+    acc = jnp.moveaxis(acc, 1, 0).reshape(10, npad)[:, :n]
+    count = acc[0]
+    safe = jnp.maximum(count, 1.0)
+    mean = (acc[1:4] / safe).T
+    xx, yy, zz = acc[4] / safe, acc[5] / safe, acc[6] / safe
+    xy, xz, yz = acc[7] / safe, acc[8] / safe, acc[9] / safe
+    second = jnp.stack(
+        [
+            jnp.stack([xx, xy, xz], -1),
+            jnp.stack([xy, yy, yz], -1),
+            jnp.stack([xz, yz, zz], -1),
+        ],
+        axis=-2,
+    )
+    cov = second - mean[:, :, None] * mean[:, None, :]
+    has = count > 0
+    return (
+        count,
+        jnp.where(has[:, None], mean + center, 0.0),
+        jnp.where(has[:, None, None], cov, 0.0),
+    )
+
+
 def gicp_covariances_radius(
     cloud: PointCloud,
     radius: float,
@@ -122,27 +193,17 @@ def gicp_covariances_radius(
     """GICP covariances, packed (6, N), from *fixed-radius* neighborhoods.
 
     The neighborhood covariance is recovered from moment statistics
-    (count, Σp, Σppᵀ) accumulated in a single fused Pallas pass
-    (``ops.pallas.radius_stats_kernel``); the surface normal and the
+    (count, Σp, Σppᵀ, ``radius_moments``); the surface normal and the
     ``I − (1−ε)·n nᵀ`` regularization follow as in the k-NN variant. On
     voxel-downsampled clouds a radius of ~2-3 leaf sizes yields the same
-    ~10-20 neighbors PCL's k-NN would find, at a fraction of the cost.
+    ~10-20 neighbors PCL's k-NN would find, with no top-k.
 
-    ``sigma > 0`` applies a Gaussian distance taper inside the radius
-    (still one fused pass) — near neighbors dominate the normal estimate
-    like in kNN mode, removing the hard-cutoff noise of the plain radius
-    weight at no extra memory traffic.
+    ``sigma > 0`` applies a Gaussian distance taper inside the radius —
+    near neighbors dominate the normal estimate like in kNN mode, removing
+    the hard-cutoff noise of the plain radius weight.
     """
-    from icpslam_tpu.ops.pallas import radius_stats_kernel as rsk
-
     pts = cloud.points
-    use_pallas = (
-        jax.default_backend() == "tpu"
-        and pts.shape[0] % rsk.DEFAULT_BQ == 0
-        and pts.shape[0] % rsk.DEFAULT_BT == 0
-    )
-    fn = rsk.radius_moments if use_pallas else rsk.radius_moments_xla
-    count, _, cov = fn(pts, pts, cloud.mask, radius, sigma=sigma)
+    count, _, cov = radius_moments(pts, pts, cloud.mask, radius, sigma=sigma)
 
     # need ≥3 neighbors (the point itself is always in-radius; with a
     # Gaussian taper `count` is the effective weight sum Σw, so the

@@ -172,11 +172,9 @@ def icp(
 
     max_d2 = config.max_correspondence_distance**2
 
-    # Structure-of-arrays views: all inner-loop math runs on (N,) component
-    # arrays (full 128-lane VPU tiles). (N, 3) / (N, 3, 3) / (N, 3, 6)
-    # intermediates get their trailing dims tile-padded to (8, 128) on TPU
-    # — measured ~0.4 ms/iteration of pure padding traffic at N=8192
-    # before this layout (~6x of the NN sweep itself).
+    # Structure-of-arrays views: all inner-loop math runs elementwise on
+    # (N,) component arrays, with no (N, 3) / (N, 3, 3) / (N, 3, 6)
+    # intermediates whose short trailing dims waste memory traffic.
     sx, sy, sz = source.points[:, 0], source.points[:, 1], source.points[:, 2]
     tp3 = target.points.T  # (3, M): one-gather layout for matched points
     if plane:
@@ -195,9 +193,6 @@ def icp(
         res = nn_ops.nearest_neighbors(
             src_t, target.points, target.mask, block=nn_block,
             valid_len=target_valid_len,
-            # matches beyond the gate are discarded below — license the
-            # kernel to prune tiles past it (exact within the gate)
-            prune_beyond=float(max_d2),
         )
         return res.idx, jnp.isfinite(res.dist2)
 
@@ -329,7 +324,7 @@ def icp(
     hessian = None
     if want_hessian:
         # Assemble JᵀWJ once more at the FINAL pose with the final
-        # correspondences — no NN sweep, one VPU reduction pass. Point
+        # correspondences — no NN sweep, one reduction pass. Point
         # mode uses W = I per point (the Kabsch objective's GN
         # information); plane mode re-evaluates the fused GICP weights at
         # the final rotation.

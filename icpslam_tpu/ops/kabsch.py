@@ -3,7 +3,7 @@
 Estimates the SE(3) transform minimizing ``Σ w_i |R s_i + t − d_i|²`` via
 Horn's closed-form quaternion method: build the 4×4 symmetric matrix from
 the weighted cross-covariance and take its top eigenvector. ``eigh`` on a
-single 4×4 is cheap and TPU-supported; unlike 3×3 SVD there is no
+single 4×4 is cheap; unlike 3×3 SVD there is no
 reflection-sign fixup needed (the quaternion parameterization can only
 produce proper rotations).
 
@@ -29,8 +29,8 @@ def weighted_rigid_align_comps(
     """Structure-of-arrays :func:`weighted_rigid_align`.
 
     Takes source/destination coordinates as six (N,) component arrays —
-    the layout the ICP inner loop keeps its data in (full-lane VPU work,
-    no tile-padded (N, 3) intermediates). Same math and results as the
+    the layout the ICP inner loop keeps its data in (elementwise work, no
+    (N, 3) intermediates). Same math and results as the
     array form: weighted centroids, cross-covariance from 9 scalar
     reductions, Horn 4×4 eigendecomposition.
     """
@@ -91,7 +91,7 @@ def weighted_rigid_align(
     s = src - cs
     d = dst - cd
 
-    # Weighted cross-covariance S = Σ w s dᵀ — one (3,N)@(N,3) MXU matmul.
+    # Weighted cross-covariance S = Σ w s dᵀ — one (3,N)@(N,3) matmul.
     S = jnp.dot((s * w[:, None]).T, d, preferred_element_type=jnp.float32)
     Sxx, Sxy, Sxz = S[0, 0], S[0, 1], S[0, 2]
     Syx, Syy, Syz = S[1, 0], S[1, 1], S[1, 2]

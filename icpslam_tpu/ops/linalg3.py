@@ -1,8 +1,8 @@
 """Small batched linear algebra helpers (3x3 / 6x6) used by registration.
 
 Closed-form adjugate inverses avoid calling general LAPACK-style kernels for
-tiny matrices inside hot loops — everything maps onto the VPU elementwise
-units and broadcasts over arbitrary leading batch axes.
+tiny matrices inside hot loops — everything is elementwise math that
+broadcasts over arbitrary leading batch axes.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def solve_psd(H: jnp.ndarray, b: jnp.ndarray, damping: float = 0.0) -> jnp.ndarr
     """Solve (H + damping*diag(H)) x = b for symmetric PSD H (..., n, n).
 
     Levenberg-style diagonal damping; uses Cholesky via jnp.linalg.solve
-    (small n, batched fine on TPU).
+    (small n, batched).
     """
     n = H.shape[-1]
     eye = jnp.eye(n, dtype=H.dtype)
@@ -110,7 +110,7 @@ def symmetrize(m: jnp.ndarray) -> jnp.ndarray:
 def eigvals_sym3(A: jnp.ndarray) -> jnp.ndarray:
     """Analytic eigenvalues of symmetric (..., 3, 3), ascending (..., 3).
 
-    Trigonometric Cardano solution — pure VPU elementwise math, orders of
+    Trigonometric Cardano solution — pure elementwise math, orders of
     magnitude faster than LAPACK-style ``eigh`` for large batches of tiny
     matrices (the GICP covariance path runs this on every point).
     """
@@ -205,9 +205,8 @@ def inv_sym3_comps(a, b, c, d, e, f, eps: float = 1e-12):
     """Inverse of symmetric ``[[a,b,c],[b,d,e],[c,e,f]]`` in component form.
 
     Operands and results are six same-shaped arrays (typically ``(N,)``) —
-    the structure-of-arrays layout keeps every op on full 128-wide VPU
-    lanes, instead of ``(N, 3, 3)`` tensors whose trailing dims get
-    tile-padded to ``(8, 128)`` (~43x wasted HBM traffic in hot loops).
+    the structure-of-arrays layout keeps every op elementwise over the
+    batch, instead of ``(N, 3, 3)`` tensors with short trailing dims.
     Same det-clamp regularization as :func:`inv3`.
     """
     cof00 = d * f - e * e
@@ -273,9 +272,8 @@ def mat_to_sym6(A: jnp.ndarray) -> jnp.ndarray:
     """Symmetric (..., 3, 3) → components-first (6, ...) packed array.
 
     ``(6, N)`` is the canonical covariance layout of the registration
-    path: the batch axis lands on the 128-wide TPU lanes, so every
-    per-point op runs on full tiles (an ``(N, 3, 3)`` array pads its
-    trailing dims to (8, 128) — ~43x the HBM traffic).
+    path: the batch axis is the last, contiguous one, so every per-point
+    op runs elementwise over it (no ``(N, 3, 3)`` intermediates).
     Component order: [xx, xy, xz, yy, yz, zz].
     """
     return jnp.stack(sym3_comps(A))

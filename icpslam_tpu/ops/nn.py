@@ -1,16 +1,19 @@
-"""Nearest-neighbor search as blocked matrix multiplies.
+"""Nearest-neighbor search: exact 1-NN and k-NN over small point clouds.
 
 PCL's GICP finds correspondences with a k-d tree per query point
-(``/root/reference/src/icpslam/icp_odometer.cpp:188-199`` internals). Trees
-are pointer-chasing and hostile to TPUs; for scan-sized clouds (≤ ~16k
-points) the speed-of-light formulation is a *blocked brute-force* search:
-``d²(q, t) = |q|² − 2·q@tᵀ + |t|²`` where the cross term is an MXU matmul,
-with the argmin fused per block so the full N×M distance matrix never hits
-HBM. Exact (not approximate) NN — better correspondences than the
-reference at higher speed.
+(the reference's ``src/icpslam/icp_odometer.cpp:188-199`` internals). For
+scan-sized clouds (≤ ~16k points) a *blocked brute-force* search is the
+accelerator formulation: exact (not approximate) NN, so better
+correspondences than the reference's tree.
 
-Queries are processed in blocks via ``lax.map`` to bound VMEM/HBM usage;
-invalid (padding) targets are masked to +inf before the argmin.
+Two implementations of one contract, chosen in one place
+(``fused_nn_enabled``):
+
+- the plain path below: ``d²(q, t) = |q|² − 2·q@tᵀ + |t|²`` per block of
+  queries (``lax.map``), masked targets at +inf before the argmin. It runs
+  everywhere and is the reference the kernel is checked against;
+- on the GPU, the fused Triton kernel ``ops.pallas.nn_kernel`` that keeps
+  the running argmin on-chip and stops at ``valid_len``.
 """
 
 from __future__ import annotations
@@ -32,14 +35,27 @@ def _pad_blocks(n: int, block: int) -> int:
     return (n + block - 1) // block * block
 
 
+def fused_nn_enabled(platform: str | None = None) -> bool:
+    """The kernel choice: the fused NN kernel on the GPU, the plain path
+    elsewhere (the CPU, which the tests use, is a supported platform).
+
+    ``platform`` defaults to where computations are placed: the device of
+    an active ``jax.default_device`` context, else the default backend.
+    """
+    if platform is None:
+        dev = jax.config.jax_default_device
+        platform = (getattr(dev, "platform", dev) if dev is not None
+                    else jax.default_backend())
+    return platform in ("gpu", "cuda")
+
+
 def nearest_neighbors(
     query: jnp.ndarray,
     target: jnp.ndarray,
     target_mask: jnp.ndarray,
     block: int = 1024,
-    use_pallas: bool | None = None,
+    fused: bool | None = None,
     valid_len: jnp.ndarray | None = None,
-    prune_beyond: float | None = None,
 ) -> NNResult:
     """Exact 1-NN of each query point in the (masked) target cloud.
 
@@ -49,31 +65,20 @@ def nearest_neighbors(
 
     ``valid_len``: optional traced scalar — live-prefix length of a
     fixed-capacity target buffer (everything past it must also be masked
-    out). The Pallas kernel uses it to skip dead-capacity tiles so cost
-    scales with fill, not capacity; the XLA path ignores it (masking
-    already guarantees correctness).
+    out). The fused kernel stops there, so cost scales with fill, not
+    capacity; the plain path ignores it (masking already guarantees
+    correctness).
 
-    ``prune_beyond``: optional static squared don't-care radius (see the
-    kernel docstring) — results are exact within it; queries with no
-    target inside it may report a farther candidate or inf. The XLA path
-    ignores it (it is an optimization license, not a semantic change for
-    gate-respecting callers).
-
-    On TPU, tile-divisible shapes dispatch to the fused subtraction-form
-    Pallas kernel (``ops.pallas.nn_kernel.nearest_neighbors_pallas3``):
-    measured on v5e vs the (precision-fixed) XLA path, 1.7x at 8192x8192
-    and 4x at 8192x262144 (21x with ``valid_len`` at ~21k fill); everything
-    else takes the blocked-matmul XLA path below.
+    ``fused``: None picks by platform (``fused_nn_enabled``); True/False
+    force the kernel or the plain path.
     """
-    from icpslam_tpu.ops.pallas import nn_kernel  # local import: avoids cycle
+    if fused is None:
+        fused = fused_nn_enabled()
+    if fused:
+        from icpslam_tpu.ops.pallas import nn_kernel  # local: avoids a cycle
 
-    tiles = nn_kernel.pick_tiles(query.shape[0], target.shape[0])
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and tiles is not None
-    if use_pallas and tiles is not None:
-        return nn_kernel.nearest_neighbors_pallas3(
-            query, target, target_mask, valid_len=valid_len,
-            bq=tiles[0], bt=tiles[1], prune_beyond=prune_beyond,
+        return nn_kernel.nearest_neighbors_triton(
+            query, target, target_mask, valid_len=valid_len
         )
     n = query.shape[0]
     np_ = _pad_blocks(n, block)
@@ -91,9 +96,9 @@ def nearest_neighbors(
     tT = target.T  # (3, M)
 
     def one_block(qb):
-        # (B, M) distance via MXU cross-term. HIGHEST: the TPU default
-        # truncates f32 matmul operands to bf16, which mis-selects ~17% of
-        # neighbors and corrupts d² by O(|t||q|/2⁸) (measured on v5e).
+        # (B, M) distance via the cross term. HIGHEST: a reduced-precision
+        # f32 product (TF32 or bf16 operands) mis-selects neighbors and
+        # corrupts d² by O(|t||q|/2⁸) at map-scale coordinates.
         cross = jnp.dot(
             qb, tT, preferred_element_type=jnp.float32,
             precision=jax.lax.Precision.HIGHEST,
@@ -117,28 +122,17 @@ def knn(
     target_mask: jnp.ndarray,
     k: int,
     block: int = 512,
-    approx: bool = False,
-    recall_target: float = 0.95,
     precision=None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """k-NN: returns (idx (N, k) int32, dist2 (N, k)).
+    """Exact k-NN: returns (idx (N, k) int32, dist2 (N, k)), nearest first.
 
-    ``approx=True`` uses ``jax.lax.approx_max_k`` — the TPU-native
-    approximate top-k (recall ~0.95+), appropriate for statistics like
-    GICP covariance neighborhoods; exact ``top_k`` otherwise. (An exact
-    Pallas k-NN via exclusion passes exists in ``ops.pallas.nn_kernel.
-    knn_pallas`` but measured *slower* than ``approx_max_k`` in the
-    covariance path — k kernel launches outweigh the top-k — so it is
-    opt-in, not dispatched here.)
+    Blocked distance matmul + ``lax.top_k`` per block of queries. Invalid
+    targets sort last with +inf distance; if fewer than k valid targets
+    exist the trailing neighbors have inf dist2 (callers mask).
 
-    Invalid targets sort last with +inf distance; if fewer than k valid
-    targets exist the trailing neighbors have inf dist2 (callers mask).
-
-    ``recall_target`` tunes ``approx_max_k`` (only with ``approx=True``);
     ``precision`` overrides the distance-matmul precision — HIGHEST by
     default (exact selection); statistics consumers (GICP covariances)
-    pass HIGH (3-pass bf16) + a lower recall for ~equal quality at lower
-    cost.
+    pass HIGH, which is TF32 on the GPU.
     """
     n = query.shape[0]
     np_ = _pad_blocks(n, block)
@@ -159,10 +153,7 @@ def knn(
             qb, tT, preferred_element_type=jnp.float32, precision=prec,
         )
         d2 = jnp.sum(qb * qb, axis=-1)[:, None] - 2.0 * cross + t_norm2[None, :]
-        if approx:
-            neg_top, idx = jax.lax.approx_max_k(-d2, k, recall_target=recall_target)
-        else:
-            neg_top, idx = jax.lax.top_k(-d2, k)
+        neg_top, idx = jax.lax.top_k(-d2, k)
         return idx.astype(jnp.int32), -neg_top
 
     idxs, d2s = jax.lax.map(one_block, qblocks)

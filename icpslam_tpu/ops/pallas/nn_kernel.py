@@ -1,31 +1,28 @@
-"""Pallas TPU kernels: fused 1-NN (distance + argmin).
+"""Fused exact 1-NN for the GPU: Pallas through Triton.
 
-The XLA path (``ops.nn``) computes ``d² = |q|² − 2q·tᵀ + |t|²`` blockwise
-and argmins — XLA materializes each (B, M) distance block in HBM between
-the matmul and the reduction. These kernels fuse the whole pipeline in
-VMEM: the target cloud stays resident on-chip, each query tile streams
-through, and the running (min, argmin) never leaves VMEM.
+The plain path (``ops.nn``) computes ``d² = |q|² − 2q·tᵀ + |t|²`` for a
+block of queries against the whole target buffer and argmins it: XLA writes
+each (B, M) distance block to device memory and reads it back, and sweeps
+the full capacity of a fixed-size map buffer whatever its fill. This kernel
+keeps the running minimum of a query block in registers while it walks over
+the target tiles, so no distance ever leaves the chip, and the walk stops at
+``valid_len``: map-query cost scales with fill.
 
-Two variants:
-- ``nearest_neighbors_pallas`` (v1): cross term as an MXU matmul at
-  ``Precision.HIGHEST`` (the TPU default truncates f32 operands to bf16,
-  which mis-selects ~17% of neighbors at map-scale coordinates); kept as
-  the reference formulation and A/B baseline.
-- ``nearest_neighbors_pallas3`` (v3, the dispatch target): subtraction
-  form ``Σ_c (t_c − q_c)²`` entirely on the VPU — exact f32 with no
-  cancellation (measured faster than v1: the 8-deep contraction runs the
-  MXU at ~6% utilization, so 6 HIGHEST passes cost more than 9 VPU
-  passes), plus a packed single-reduce min/argmin.
+Design (one program per query block; blocks run in no order):
 
-Layout notes (see /opt/skills/guides/pallas_guide.md):
-- coordinate dim padded 3→8 (f32 sublane quantum); zero rows are inert in
-  the dot product
-- last dims are multiples of 128 (lane width); callers pad query/target
-  counts (capacities are powers of two throughout the pipeline)
-- masked targets carry +inf in the precomputed |t|² row (v1) or a large
-  finite penalty row (v3), so they never win the argmin
-- both wrappers center coordinates on the query centroid (translation
-  invariant; curbs cancellation / keeps quantization headroom)
+- ``d² = Σ_c (t_c − q_c)²`` in float32 on the CUDA cores. With three
+  coordinates there is no work for the tensor cores, and the subtraction
+  form has no cancellation, so far-from-origin map frames need no
+  re-centring.
+- A ``fori_loop`` inside the program walks the live target tiles; its trip
+  count comes from ``valid_len``, which the program loads itself.
+- The running best is kept per (query, lane) — a (BQ, BT) pair of
+  registers updated elementwise with a strict ``<`` — and reduced over the
+  lanes once, after the walk (lowest target index on ties, as in the plain
+  path). A per-tile min/argmin would pay a cross-lane reduction on every
+  step.
+- Masked targets carry ``+inf`` in a fourth penalty row; query and target
+  counts are padded to whole tiles, so any N and M are accepted.
 """
 
 from __future__ import annotations
@@ -34,473 +31,104 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from icpslam_tpu.ops.nn import NNResult
 
-DEFAULT_BQ = 256
-DEFAULT_BT = 512
-# preferred (largest) tile sizes — measured fastest at scan scale on v5e
-# with the AABB tile pruning (1024x1024: 0.257 ms at 8192x8192 vs 0.270 at
-# 1024x2048 and 0.374 at the 256/512 minimum tiles; map-scale queries with
-# valid_len are insensitive: 1.28 vs 1.30 ms at 8192x262144 @ 21k fill)
-MAX_BQ = 1024
-MAX_BT = 1024
+# the fastest tiling of a sweep on the H100 at the odometry (8192²) and
+# map (8192 × 262144, partial and full fill) shapes
+BQ = 32     # queries per program
+BT = 128    # targets per loop step (the lanes of the running best)
+NUM_WARPS = 8
 
 
-def pick_tiles(n: int, m: int) -> tuple[int, int] | None:
-    """Largest power-of-two tiles dividing (n, m), capped at MAX_BQ/MAX_BT.
+def _nn_kernel(vl_ref, q_ref, t_ref, idx_ref, d2_ref, *, bt: int):
+    """Program i: query block i against targets [0, valid_len).
 
-    Returns None when n or m cannot meet the DEFAULT_BQ/DEFAULT_BT minimum
-    (the caller falls back to the XLA path).
+    vl_ref: (1,) int32 live-target count; q_ref: (4, BQ) query block
+    (rows x, y, z, unused); t_ref: (4, M) whole target buffer (rows x, y,
+    z, penalty: 0 live, +inf masked); idx_ref/d2_ref: (BQ,) outputs.
     """
-    def largest(x: int, cap: int, floor: int) -> int | None:
-        b = cap
-        while b >= floor:
-            if x % b == 0:
-                return b
-            b //= 2
-        return None
+    n_tiles = (vl_ref[0] + bt - 1) // bt
+    q0 = q_ref[0, :][:, None]
+    q1 = q_ref[1, :][:, None]
+    q2 = q_ref[2, :][:, None]
+    shape = (q0.shape[0], bt)
 
-    bq = largest(n, MAX_BQ, DEFAULT_BQ)
-    bt = largest(m, MAX_BT, DEFAULT_BT)
-    if bq is None or bt is None:
-        return None
-    return bq, bt
+    def step(j, carry):
+        best, tile = carry
+        sl = pl.ds(j * bt, bt)
+        e0 = t_ref[0, sl][None, :] - q0
+        e1 = t_ref[1, sl][None, :] - q1
+        e2 = t_ref[2, sl][None, :] - q2
+        d2 = e0 * e0 + e1 * e1 + e2 * e2 + t_ref[3, sl][None, :]
+        better = d2 < best
+        return jnp.where(better, d2, best), jnp.where(better, j, tile)
 
-
-def _nn_kernel(vl_ref, qT_ref, tT_ref, tn2_ref, idx_ref, d2_ref, *, bt: int):
-    """Grid step (i, j): query tile i vs target tile j.
-
-    The output blocks are indexed by i only, so they stay resident in VMEM
-    while j sweeps the targets (Pallas revisited-output accumulation) and
-    the BlockSpec pipeline double-buffers the target tiles from HBM.
-
-    vl_ref: (1,) int32 scalar-prefetch — number of live targets; tiles
-        starting at or beyond it are skipped entirely (their targets are
-        masked +inf anyway, so they can never win the argmin)
-    qT_ref: (8, BQ) query tile (coords transposed, padded)
-    tT_ref: (8, BT) target tile
-    tn2_ref: (1, BT) target squared norms (+inf for masked)
-    idx_ref: (1, BQ) int32 running argmin; d2_ref: (1, BQ) f32 running min
-    """
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        d2_ref[:, :] = jnp.full_like(d2_ref, jnp.inf)
-        idx_ref[:, :] = jnp.zeros_like(idx_ref)
-
-    @pl.when(j * bt < vl_ref[0])
-    def _():
-        # d2 laid out (BT, BQ): queries ride the lane dimension, so the
-        # min/argmin over targets (axis 0, sublanes) lands directly in the
-        # (1, BQ) output layout — no per-step transposes.
-        qT = qT_ref[:, :]  # (8, BQ)
-        qn2 = jnp.sum(qT * qT, axis=0, keepdims=True)  # (1, BQ)
-        # HIGHEST: the MXU's default f32 path truncates operands to bf16,
-        # which mis-selects ~17% of neighbors and corrupts d² by O(|t||q|/2⁸)
-        # at map-scale coordinates (measured on v5e) — see ops/nn.py notes
-        cross = jax.lax.dot_general(
-            tT_ref[:, :], qT, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )  # (BT, BQ)
-        d2 = tn2_ref[0, :][:, None] - 2.0 * cross + qn2
-        local_min = jnp.min(d2, axis=0)  # (BQ,) lane layout
-        local_arg = jnp.argmin(d2, axis=0).astype(jnp.int32) + j * bt
-
-        best_d2 = d2_ref[0, :]
-        best_idx = idx_ref[0, :]
-        better = local_min < best_d2
-        d2_ref[0, :] = jnp.where(better, local_min, best_d2)
-        idx_ref[0, :] = jnp.where(better, local_arg, best_idx)
-
-
-@functools.partial(jax.jit, static_argnames=("bq", "bt", "interpret"))
-def nearest_neighbors_pallas(
-    query: jnp.ndarray,
-    target: jnp.ndarray,
-    target_mask: jnp.ndarray,
-    valid_len: jnp.ndarray | None = None,
-    bq: int = DEFAULT_BQ,
-    bt: int = DEFAULT_BT,
-    interpret: bool = False,
-) -> NNResult:
-    """Exact 1-NN via the fused Pallas kernel.
-
-    query: (N, 3); target: (M, 3); target_mask: (M,). N must divide by
-    ``bq`` and M by ``bt`` (the pipeline's power-of-two capacities do).
-
-    ``valid_len`` (traced int32 scalar, optional) is the number of live
-    targets when the target array is a prefix-filled fixed-capacity
-    buffer (e.g. the append-only point map): target tiles past it skip
-    both their compute and their HBM fetch, so query cost scales with the
-    live size instead of the capacity. Targets past ``valid_len`` MUST be
-    masked out in ``target_mask`` (they are never examined).
-    """
-    n = query.shape[0]
-    m = target.shape[0]
-    if n % bq or m % bt:
-        raise ValueError(f"shapes ({n},{m}) not divisible by tiles ({bq},{bt})")
-
-    # translation-invariant: center on the query centroid to curb
-    # cancellation in tn2 − 2c + qn2 at far-from-origin map coordinates
-    center = jnp.mean(query, axis=0, keepdims=True)
-    query = query - center
-    target = target - center
-
-    qT = jnp.zeros((8, n), jnp.float32).at[:3, :].set(query.T)
-    tT = jnp.zeros((8, m), jnp.float32).at[:3, :].set(target.T)
-    tn2 = jnp.sum(target * target, axis=-1)
-    tn2 = jnp.where(target_mask, tn2, jnp.inf)[None, :]  # (1, M)
-
-    if valid_len is None:
-        vl = jnp.full((1,), m, jnp.int32)
-    else:
-        vl = jnp.asarray(valid_len, jnp.int32).reshape(1)
-
-    # Clamp the target-block index to the last live tile: Pallas skips the
-    # DMA when a revisited block index is unchanged, so dead-capacity tiles
-    # cost neither bandwidth nor (thanks to the pl.when guard) compute.
-    def tgt_block(i, j, vl_ref):
-        last = jnp.maximum((vl_ref[0] + bt - 1) // bt - 1, 0)
-        return (0, jnp.minimum(j, last))
-
-    grid = (n // bq, m // bt)
-    idx, d2 = pl.pallas_call(
-        functools.partial(_nn_kernel, bt=bt),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((8, bq), lambda i, j, vl_ref: (0, i)),
-                pl.BlockSpec((8, bt), tgt_block),
-                pl.BlockSpec((1, bt), tgt_block),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, bq), lambda i, j, vl_ref: (0, i)),
-                pl.BlockSpec((1, bq), lambda i, j, vl_ref: (0, i)),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n * m * 8 + 4 * n * m,
-            bytes_accessed=(8 * n + 8 * m + m + 2 * n) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(vl, qT, tT, tn2)
-
-    d2_out = jnp.maximum(d2[0], 0.0)
-    d2_out = jnp.where(jnp.isfinite(d2[0]), d2_out, d2[0])
-    return NNResult(idx=idx[0], dist2=d2_out)
-
-
-# ---------------------------------------------------------------------------
-# v3 kernel: pure-VPU subtraction-form d² — exact f32, no MXU at all
-# ---------------------------------------------------------------------------
-
-# masked targets carry this penalty in their row 3: big enough to never win
-# against a real match, small enough to stay finite under the packed min
-_MASK_SENTINEL = 1e30
-# running-min init: larger than any sentinel-laden d², still finite f32
-_INIT_F32 = 3e38
-
-
-def _nn3_kernel(
-    vl_ref, qT_ref, tT_ref, jwin_ref, pk_ref, *, bt: int, ib: int,
-    mt: int, nt: int, prune_bits: int,
-):
-    """Grid step (i, j): query tile i vs target tile jj, d² on the VPU.
-
-    The matmul formulation ``|t|² − 2t·q + |q|²`` needs either full-f32
-    MXU passes (6x, and the 8-deep contraction runs the MXU at ~6%
-    utilization) or suffers bf16 operand truncation; the subtraction form
-    ``Σ_c (t_c − q_c)²`` is exact f32 with *no* cancellation, and at 3
-    coordinates costs fewer VPU passes than the matmul's padding tricks.
-    Target coordinates arrive lane-major and are transposed per tile
-    ((1, BT) → (BT, 1) relayout — negligible next to the (BT, BQ) work).
-    Row 3 of the target tile carries the mask penalty (0 live, big dead).
-    Reduction is the packed min/argmin of the v2 kernel.
-
-    Two pruning mechanisms exploit that scan clouds come out of the voxel
-    filter sorted by packed voxel key (spatially-coherent x-slabs):
-    - **matched start**: the j sweep visits target tiles rotated so the
-      spatially-matching slab comes first (``jj = (j + i·mt/nt) % mt``),
-      establishing a tight running best immediately;
-    - **AABB skip**: a tile is skipped when the axis-aligned bounding-box
-      distance between the query block and the target tile already
-      exceeds the block's worst current best — provably no query can
-      improve there, so skipping never changes the result (up to which of
-      two within-quantization-tie neighbors wins).
-    """
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    jj = jax.lax.rem(j + (i * mt) // nt, mt)
-    mask = (1 << ib) - 1
-    init = int(np.float32(_INIT_F32).view(np.int32)) & ~mask
-
-    @pl.when(j == 0)
-    def _():
-        pk_ref[:, :] = jnp.full_like(pk_ref, init)
-        jwin_ref[:, :] = jnp.zeros_like(jwin_ref)
-
-    @pl.when(jj * bt < vl_ref[0])
-    def _():
-        # block-level AABB lower bound vs the worst current best: packed
-        # keys are order-isomorphic to d², so the lane-max of pk IS the
-        # (quantized) worst best. Padding coords sit far away (targets) or
-        # at −center (queries) and only make the bound more conservative.
-        tlo0 = jnp.min(tT_ref[0, :]); thi0 = jnp.max(tT_ref[0, :])
-        tlo1 = jnp.min(tT_ref[1, :]); thi1 = jnp.max(tT_ref[1, :])
-        tlo2 = jnp.min(tT_ref[2, :]); thi2 = jnp.max(tT_ref[2, :])
-        qlo0 = jnp.min(qT_ref[0, :]); qhi0 = jnp.max(qT_ref[0, :])
-        qlo1 = jnp.min(qT_ref[1, :]); qhi1 = jnp.max(qT_ref[1, :])
-        qlo2 = jnp.min(qT_ref[2, :]); qhi2 = jnp.max(qT_ref[2, :])
-        g0 = jnp.maximum(jnp.maximum(qlo0 - thi0, tlo0 - qhi0), 0.0)
-        g1 = jnp.maximum(jnp.maximum(qlo1 - thi1, tlo1 - qhi1), 0.0)
-        g2 = jnp.maximum(jnp.maximum(qlo2 - thi2, tlo2 - qhi2), 0.0)
-        lb2 = g0 * g0 + g1 * g1 + g2 * g2
-        # compare in int space: non-negative f32 bit patterns are order-
-        # isomorphic to their values, and Mosaic only bitcasts vectors —
-        # so lift lb2 into a vector, bitcast, and compare scalar ints
-        lb2_bits = jax.lax.bitcast_convert_type(
-            jnp.full((1, 128), lb2, jnp.float32), jnp.int32
-        )[0, 0]
-        worst = jnp.max(pk_ref[0, :]) & ~mask
-        # cap by the caller's don't-care radius: matches beyond it are
-        # discarded anyway, so tiles farther than it never need computing
-        # (un-matched queries then report d² = +inf, same as all-masked)
-        worst = jnp.minimum(worst, jnp.int32(prune_bits))
-
-        @pl.when(lb2_bits <= worst)
-        def _():
-            t0 = tT_ref[0, :][:, None]  # (BT, 1)
-            t1 = tT_ref[1, :][:, None]
-            t2 = tT_ref[2, :][:, None]
-            pen = tT_ref[3, :][:, None]
-            q0 = qT_ref[0:1, :]  # (1, BQ)
-            q1 = qT_ref[1:2, :]
-            q2 = qT_ref[2:3, :]
-            e0 = t0 - q0
-            e1 = t1 - q1
-            e2 = t2 - q2
-            d2 = e0 * e0 + e1 * e1 + e2 * e2 + pen  # (BT, BQ), exact f32
-
-            idx = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 0)
-            packed = (jax.lax.bitcast_convert_type(d2, jnp.int32) & ~mask) | idx
-            local = jnp.min(packed, axis=0)
-
-            best = pk_ref[0, :]
-            better = local < best
-            pk_ref[0, :] = jnp.where(better, local, best)
-            jwin_ref[0, :] = jnp.where(better, jj, jwin_ref[0, :])
+    best, tile = jax.lax.fori_loop(
+        0, n_tiles, step,
+        (jnp.full(shape, jnp.inf, jnp.float32), jnp.zeros(shape, jnp.int32)),
+    )
+    lane = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
+    idx = tile * bt + lane
+    d2 = jnp.min(best, axis=1)
+    # lowest target index among the lanes that reach the minimum
+    big = jnp.iinfo(jnp.int32).max
+    idx = jnp.min(jnp.where(best == d2[:, None], idx, big), axis=1)
+    idx_ref[...] = jnp.where(idx == big, 0, idx)
+    d2_ref[...] = d2
 
 
 @functools.partial(
-    jax.jit, static_argnames=("bq", "bt", "interpret", "prune_beyond")
+    jax.jit, static_argnames=("bq", "bt", "interpret")
 )
-def nearest_neighbors_pallas3(
+def nearest_neighbors_triton(
     query: jnp.ndarray,
     target: jnp.ndarray,
     target_mask: jnp.ndarray,
     valid_len: jnp.ndarray | None = None,
-    bq: int = DEFAULT_BQ,
-    bt: int = DEFAULT_BT,
+    bq: int = BQ,
+    bt: int = BT,
     interpret: bool = False,
-    prune_beyond: float | None = None,
 ) -> NNResult:
-    """Exact 1-NN, v3: subtraction-form d² on the VPU (no MXU).
+    """Exact 1-NN of each query in the masked target buffer.
 
-    Same contract as ``nearest_neighbors_pallas``; selection is exact f32
-    up to the ``ib``-bit packing quantization (lowest index on quantized
-    ties); the returned ``dist2`` is recomputed exactly from the winner.
-
-    ``prune_beyond`` (static float, optional): squared don't-care radius.
-    Results stay exact for every query whose true NN lies within it;
-    queries whose nearest target is farther may instead report a farther
-    candidate or ``dist2 = inf``. Callers that gate correspondences at a
-    max distance (ICP) pass that gate here — AABB pruning then skips
-    far tiles even for blocks containing gate-failing outlier queries.
+    Same contract as ``ops.nn.nearest_neighbors``: query (N, 3), target
+    (M, 3), target_mask (M,); any N and M. ``valid_len`` (traced int32
+    scalar): targets at or past it are never visited and must be masked.
     """
-    n = query.shape[0]
-    m = target.shape[0]
-    if n % bq or m % bt:
-        raise ValueError(f"shapes ({n},{m}) not divisible by tiles ({bq},{bt})")
-    ib = (bt - 1).bit_length()
+    n, m = query.shape[0], target.shape[0]
+    n_pad = pl.cdiv(n, bq) * bq
+    m_pad = pl.cdiv(m, bt) * bt
+    qT = jnp.pad(query.astype(jnp.float32).T, ((0, 1), (0, n_pad - n)))
+    pen = jnp.where(target_mask, 0.0, jnp.inf).astype(jnp.float32)
+    tT = jnp.concatenate([target.astype(jnp.float32).T, pen[None, :]])
+    tT = jnp.pad(tT, ((0, 0), (0, m_pad - m)))
+    tT = tT.at[3, m:].set(jnp.inf)
+    vl = jnp.asarray(m if valid_len is None else valid_len, jnp.int32)
+    vl = jnp.clip(vl, 0, m).reshape(1)
 
-    # centering keeps |coords| small so the packed-d² quantization (a
-    # *relative* ib-bit floor) stays negligible near the true neighbors
-    center = jnp.mean(query, axis=0, keepdims=True)
-    qc = query - center
-    tc = target - center
-
-    qT = jnp.zeros((8, n), jnp.float32).at[:3, :].set(qc.T)
-    tT = (
-        jnp.zeros((8, m), jnp.float32)
-        .at[:3, :].set(tc.T)
-        .at[3, :].set(jnp.where(target_mask, 0.0, _MASK_SENTINEL))
-    )
-
-    if valid_len is None:
-        vl = jnp.full((1,), m, jnp.int32)
-    else:
-        vl = jnp.asarray(valid_len, jnp.int32).reshape(1)
-
-    nt, mt = n // bq, m // bt
-    prune_bits = (
-        int(np.float32(_INIT_F32).view(np.int32))
-        if prune_beyond is None
-        else int(np.float32(prune_beyond).view(np.int32))
-    )
-
-    def tgt_block(i, j, vl_ref):
-        # same rotation as in-kernel: start each query block at its
-        # spatially-matching target slab (both clouds are voxel-key sorted)
-        jj = jax.lax.rem(j + (i * mt) // nt, mt)
-        last = jnp.maximum((vl_ref[0] + bt - 1) // bt - 1, 0)
-        return (0, jnp.minimum(jj, last))
-
-    grid = (nt, mt)
-    jwin, pk = pl.pallas_call(
-        functools.partial(_nn3_kernel, bt=bt, ib=ib, mt=mt, nt=nt,
-                          prune_bits=prune_bits),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((8, bq), lambda i, j, vl_ref: (0, i)),
-                pl.BlockSpec((8, bt), tgt_block),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, bq), lambda i, j, vl_ref: (0, i)),
-                pl.BlockSpec((1, bq), lambda i, j, vl_ref: (0, i)),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=9 * n * m,
-            bytes_accessed=(8 * n + 8 * m + 2 * n) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(vl, qT, tT)
-
-    mask = (1 << ib) - 1
-    idx = jwin[0] * bt + (pk[0] & mask)
-    d2q = jax.lax.bitcast_convert_type(pk[0] & ~mask, jnp.float32)
-    diff = qc - tc[idx]
-    d2 = jnp.maximum(jnp.sum(diff * diff, axis=-1), 0.0)
-    d2 = jnp.where(d2q > 1e29, jnp.inf, d2)
-    return NNResult(idx=idx, dist2=d2)
-
-
-# ---------------------------------------------------------------------------
-# Exact k-NN: k successive 1-NN passes, each excluding previous winners
-# ---------------------------------------------------------------------------
-
-
-def _nn_excl_kernel(qT_ref, tT_ref, tn2_ref, excl_ref, idx_ref, d2_ref, *, bt: int):
-    """1-NN pass that skips, per query, the target indices in excl_ref.
-
-    excl_ref: (KEX, BQ) int32 — previously found neighbors (-1 = none).
-    Layout identical to ``_nn_kernel`` otherwise.
-    """
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        d2_ref[:, :] = jnp.full_like(d2_ref, jnp.inf)
-        idx_ref[:, :] = jnp.zeros_like(idx_ref)
-
-    qT = qT_ref[:, :]
-    qn2 = jnp.sum(qT * qT, axis=0, keepdims=True)
-    cross = jax.lax.dot_general(
-        tT_ref[:, :], qT, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # (BT, BQ)
-    d2 = tn2_ref[0, :][:, None] - 2.0 * cross + qn2
-    t_idx = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 0) + j * bt
-    kex = excl_ref.shape[0]
-    excluded = jnp.zeros(d2.shape, dtype=bool)
-    for p in range(kex):
-        excluded = excluded | (t_idx == excl_ref[p, :][None, :])
-    d2 = jnp.where(excluded, jnp.inf, d2)
-    local_min = jnp.min(d2, axis=0)
-    local_arg = jnp.argmin(d2, axis=0).astype(jnp.int32) + j * bt
-
-    best_d2 = d2_ref[0, :]
-    best_idx = idx_ref[0, :]
-    better = local_min < best_d2
-    d2_ref[0, :] = jnp.where(better, local_min, best_d2)
-    idx_ref[0, :] = jnp.where(better, local_arg, best_idx)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "bq", "bt", "interpret"))
-def knn_pallas(
-    query: jnp.ndarray,
-    target: jnp.ndarray,
-    target_mask: jnp.ndarray,
-    k: int,
-    bq: int = DEFAULT_BQ,
-    bt: int = DEFAULT_BT,
-    interpret: bool = False,
-):
-    """Exact k-NN as k fused passes; each pass excludes earlier winners.
-
-    Returns (idx (N, k) int32, dist2 (N, k)) sorted ascending by distance.
-    Cost ≈ k × the 1-NN kernel — still far below a materialized top-k at
-    scan sizes, and exact (unlike ``approx_max_k``).
-    """
-    n = query.shape[0]
-    m = target.shape[0]
-    if n % bq or m % bt:
-        raise ValueError(f"shapes ({n},{m}) not divisible by tiles ({bq},{bt})")
-
-    qT = jnp.zeros((8, n), jnp.float32).at[:3, :].set(query.T)
-    tT = jnp.zeros((8, m), jnp.float32).at[:3, :].set(target.T)
-    tn2 = jnp.sum(target * target, axis=-1)
-    tn2 = jnp.where(target_mask, tn2, jnp.inf)[None, :]
-
-    call = pl.pallas_call(
-        functools.partial(_nn_excl_kernel, bt=bt),
-        grid=(n // bq, m // bt),
+    idx, d2 = pl.pallas_call(
+        functools.partial(_nn_kernel, bt=bt),
+        grid=(n_pad // bq,),
         in_specs=[
-            pl.BlockSpec((8, bq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, bt), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bt), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, bq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1,), lambda i: (0,)),
+            pl.BlockSpec((4, bq), lambda i: (0, i)),
+            pl.BlockSpec((4, m_pad), lambda i: (0, 0)),
         ],
         out_specs=[
-            pl.BlockSpec((1, bq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
+            pl.BlockSpec((bq,), lambda i: (i,)),
+            pl.BlockSpec((bq,), lambda i: (i,)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
+            jax.ShapeDtypeStruct((n_pad,), jnp.int32),
+            jax.ShapeDtypeStruct((n_pad,), jnp.float32),
         ],
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )
-
-    excl = jnp.full((k, n), -1, jnp.int32)
-    idxs = []
-    d2s = []
-    for p in range(k):
-        idx, d2 = call(qT, tT, tn2, excl)
-        idxs.append(idx[0])
-        d2s.append(d2[0])
-        excl = excl.at[p].set(idx[0])
-    idx = jnp.stack(idxs, axis=-1)
-    d2 = jnp.stack(d2s, axis=-1)
-    d2 = jnp.where(jnp.isfinite(d2), jnp.maximum(d2, 0.0), d2)
-    return idx, d2
+        name="nn_fused",
+    )(vl, qT, tT)
+    return NNResult(idx=idx[:n], dist2=d2[:n])

@@ -31,7 +31,7 @@ Layout note: this solver builds (N, 3, 12) Jacobians with einsum rather
 than the hand-unrolled SoA component form of ``ops/icp.py`` — it runs
 only in the opt-in no-INS de-skew mode (``config.deskew_rounds`` +
 ``deskew_mode='joint'``), where clarity of the 12-DoF assembly wins over
-the last 2x of VPU issue rate. Replaces nothing in the reference (which
+hand-unrolled speed. Replaces nothing in the reference (which
 has no de-skew at all); capability parity target is LOAM-class ingest.
 """
 
@@ -195,7 +195,7 @@ def coupled_deskew_icp(
         q_warp = warp_exact(q_pts, v_all, c.pose)
         res = nn_ops.nearest_neighbors(
             P, q_warp, target.mask, block=nn_block,
-            valid_len=target_valid_len, prune_beyond=float(max_d2),
+            valid_len=target_valid_len,
         )
         idx = res.idx
         matched = jnp.isfinite(res.dist2)
@@ -469,7 +469,7 @@ def skew_aware_icp(
 
         res = nn_ops.nearest_neighbors(
             P, target.points, target.mask, block=nn_block,
-            valid_len=target_valid_len, prune_beyond=float(max_d2),
+            valid_len=target_valid_len,
         )
         idx = res.idx
         matched = jnp.isfinite(res.dist2)

@@ -4,7 +4,7 @@ The reference's back-end is one sequential g2o solve
 (``/root/reference/src/icpslam/icpslam.cpp:171``). Here the expensive part
 — per-edge residual/Jacobian evaluation and block scatter-assembly — is
 sharded across devices by *edge* (each device owns E/D edges), and the
-partial normal equations are reduced with ``psum`` over ICI inside
+partial normal equations are reduced with ``psum`` over the mesh inside
 ``shard_map``. Three linear solvers on top:
 
 - ``direct``: replicated dense 6K×6K Cholesky (cheap for keyframe scale)

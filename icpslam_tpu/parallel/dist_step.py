@@ -12,7 +12,7 @@ pattern the reference cannot express at all; SURVEY.md §2.3):
 3. sequential graph edges are built from the relative poses, and the pose
    graph is optimized with the *edge-sharded* distributed Gauss-Newton
    (``parallel/dist_graph``): per-device Jacobian/assembly + ``psum`` over
-   ICI, replicated solve
+   the mesh, replicated solve
 
 Used by ``__graft_entry__.dryrun_multichip`` to validate the multi-chip
 sharding compiles and runs (8 virtual CPU devices in CI, real slices in

@@ -2,8 +2,9 @@
 
 The reference has no distribution at all (SURVEY.md §2.3: a single ROS
 process; README admits even thread safety is unfinished). This framework's
-scaling story is JAX-native: a named ``Mesh`` over the slice, explicit
-shardings, and XLA collectives over ICI — no NCCL/MPI analog needed.
+scaling story is JAX-native: a named 1-D ``Mesh`` over the devices,
+explicit shardings, and XLA collectives (NCCL over NVLink between GPUs) —
+no hand-written communication.
 
 Axis conventions used across ``parallel/``:
 - ``"dp"``  — data parallel over independent work items (scan pairs,

@@ -3,18 +3,20 @@
 The reference is strictly single-process (SURVEY.md §1 middleware note).
 This framework's multi-host story follows the standard JAX recipe:
 
-- **DCN / process coordination**: ``jax.distributed.initialize`` connects
-  the host processes (one per TPU VM); afterwards ``jax.devices()`` spans
-  the whole slice and every jitted/shard_mapped computation in
-  ``parallel/`` runs SPMD across hosts with XLA collectives riding ICI.
+- **process coordination**: ``jax.distributed.initialize`` connects the
+  host processes (one per GPU host); afterwards ``jax.devices()`` spans
+  every card and every jitted/shard_mapped computation in ``parallel/``
+  runs SPMD across hosts, its collectives handed to NCCL.
 - **host-side scan feed**: each process feeds only its local shard of any
   globally-sharded input via ``jax.make_array_from_process_local_data``;
   for the streaming SLAM loop the scan stream is broadcast (small) while
   map/graph state lives sharded on device.
 
-Nothing here is TPU-pod-specific to *call* — on CI it initializes a
-single-process "cluster" and the same code paths run on the 8-virtual-
-device CPU mesh.
+On GPU hosts nothing detects the cluster by itself: pass the coordinator
+address (``host:port``), the process count and this process's id, or run
+under a cluster environment JAX recognises (e.g. SLURM). On CI it
+initializes a single-process "cluster" and the same code paths run on the
+8-virtual-device CPU mesh.
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ def initialize(
 ) -> None:
     """Connect this process to the multi-host cluster.
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (the normal path on Cloud TPU VMs). No-op if already initialized or
-    running single-process.
+    On GPU hosts pass ``coordinator_address`` (``host:port`` of process 0),
+    ``num_processes`` and ``process_id``. With no arguments JAX's own
+    cluster auto-detection is tried (a SLURM or similar environment); where
+    it finds none the process stays single-process and says so in the log.
+    No-op if already initialized.
     """
     # NOTE: must not touch the XLA backend (jax.devices / process_count)
     # before jax.distributed.initialize — backend init pins single-process.
@@ -62,7 +66,9 @@ def initialize(
         import logging
 
         logging.getLogger(__name__).info(
-            "jax.distributed auto-init unavailable (%s); running single-process",
+            "jax.distributed found no cluster environment (%s); running "
+            "single-process — on GPU hosts pass coordinator_address, "
+            "num_processes and process_id",
             e,
         )
 

@@ -15,7 +15,7 @@ block is owned by exactly one device via a spatial hash. Consequences:
   lowest-device tie-break, ``psum`` to materialize the winning point).
 
 Capacity scales linearly with devices (each shard has its own capacity),
-which is the point: a pod slice holds a city-scale map no single chip
+which is the point: several cards hold a city-scale map no single card
 could.
 """
 

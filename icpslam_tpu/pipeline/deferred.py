@@ -2,7 +2,7 @@
 
 The reference's main loop BLOCKS on g2o's ``optimize()``
 (``/root/reference/src/icpslam/icpslam.cpp:171``) — the front-end stalls
-for every solve. The TPU-native pipeline-parallel formulation (SURVEY
+for every solve. The pipeline-parallel formulation here (SURVEY
 §2.3 "double-buffered device steps") exploits JAX async dispatch instead:
 
 1. when the keyframe window fills, the solve is dispatched as its OWN

@@ -4,7 +4,7 @@
 Two mechanisms:
 - ``StageTimer``: lightweight host-side wall-clock accumulation per named
   pipeline stage (blocks on device results, so timings are honest)
-- ``trace()``: context manager around ``jax.profiler`` for full XLA/TPU
+- ``trace()``: context manager around ``jax.profiler`` for full XLA/GPU
   traces viewable in TensorBoard/Perfetto, plus ``annotate()`` for named
   trace regions inside host loops
 """

@@ -1,21 +1,16 @@
-"""Speed-of-light accounting for the hot path (BASELINE.md: "speed-of-
-light per chip"; VERDICT r2 item 4).
+"""Speed-of-light accounting for the hot path.
 
 Analytic FLOP / bytes-moved models for each pipeline stage at the bench
-shapes, divided by measured stage times to yield achieved GB/s and
-GFLOP/s against the v5e's peaks. The models are *minimum-traffic*
-derivations from the algorithms (not profiler counters): they bound what
-a perfect implementation would move/compute, so ``frac_hbm`` /
-``frac_mxu`` read as "fraction of the roofline actually achieved" and a
-small number means the stage is bound by something else (reported in
-``bound``) — at scan sizes (8-32k points) that is usually VPU issue rate
-or XLA sort latency, not bandwidth.
+shapes, divided by measured stage times to give achieved GB/s and GFLOP/s,
+and the fraction of the device's published peaks they reach. The models
+are *minimum-traffic* derivations from the algorithms (not profiler
+counters): a small fraction means the stage is bound by something else
+(reported in ``bound``) — at scan sizes (8-32k points) usually latency or
+sort passes, not bandwidth.
 
-v5e peaks (public): 197 bf16 TFLOP/s MXU, 819 GB/s HBM. f32 matmuls at
-``Precision.HIGHEST`` run ~6 bf16 passes (≈33 TFLOP/s effective); HIGH is
-3 passes (≈66). The VPU's f32 throughput is not published; derived from
-lane geometry (8×128 lanes × 2 FLOP (FMA) × ~1.5 GHz × 4 units ≈ 12
-TFLOP/s) and labeled approximate.
+Peaks come from ``PEAKS``, keyed by ``jax.Device.device_kind``. A device
+that is not in the table (the CPU included) gets no fraction (``None``):
+no peak is ever assumed.
 """
 
 from __future__ import annotations
@@ -23,15 +18,31 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
-V5E = dict(
-    hbm_gbps=819.0,
-    mxu_bf16_tflops=197.0,
-    mxu_f32_highest_tflops=197.0 / 6.0,
-    mxu_f32_high_tflops=197.0 / 3.0,
-    vpu_f32_tflops_approx=12.0,
+# Published dense peaks (NVIDIA H100 SXM5 data sheet, at the 700 W limit):
+# FLOP/s in TFLOP/s by unit, device memory in GB/s.
+_H100_SXM = dict(
+    hbm_gbps=3350.0,
+    fp32_cuda_core_tflops=67.0,
+    tf32_tensor_tflops=495.0,
+    bf16_tensor_tflops=989.0,
 )
+PEAKS: Dict[str, dict] = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
+}
+
+# the compute unit each ``bound`` label is measured against
+_BOUND_UNIT = {
+    "fp32-cuda-core": "fp32_cuda_core_tflops",
+    "tf32-tensor": "tf32_tensor_tflops",
+    "bf16-tensor": "bf16_tensor_tflops",
+}
 
 _F32 = 4  # bytes
+
+
+def peaks(device_kind: Optional[str]) -> Optional[dict]:
+    """The peak table row for ``device_kind``, or None if it is unknown."""
+    return PEAKS.get(device_kind) if device_kind else None
 
 
 def _stage(flops: float, bytes_: float, bound: str, note: str) -> dict:
@@ -39,41 +50,37 @@ def _stage(flops: float, bytes_: float, bound: str, note: str) -> dict:
 
 
 def nn_pairs_model(n: int, m: int, sweeps: float = 1.0) -> dict:
-    """Fused VPU 1-NN (ops/pallas/nn_kernel v3): per (query, target) pair
-    the subtraction form costs ~11 VPU ops (3 sub + 3 mul + 2 add +
-    packed min/argmin select chain). Minimum HBM traffic per sweep: read
-    both clouds once (the kernel keeps outputs + query tile in VMEM and
-    streams target tiles; each target tile is re-read once per query
-    tile, captured by the (n/bq) factor)."""
-    bq = 1024.0
-    reread = max(n / bq, 1.0)
+    """Fused 1-NN (``ops.pallas.nn_kernel``): per (query, target) pair the
+    subtraction form costs ~11 float32 ops on the CUDA cores (3 sub + 3
+    mul + 3 add + min/argmin compare and select). Minimum device-memory
+    traffic per sweep: read both clouds once (target tiles are re-read by
+    every query block, from L2) and write the (idx, d²) pair."""
     return _stage(
         flops=11.0 * n * m * sweeps,
-        bytes_=(n * 3 * _F32 + reread * m * 4 * _F32) * sweeps,
-        bound="vpu-issue",
-        note=f"{n}x{m} fused VPU 1-NN, {sweeps:.1f} sweeps",
+        bytes_=(n * 3 + m * 4 + n * 2) * _F32 * sweeps,
+        bound="fp32-cuda-core",
+        note=f"{n}x{m} fused 1-NN, {sweeps:.1f} sweeps",
     )
 
 
 def voxel_filter_model(raw: int) -> dict:
     """Sort-based voxel downsample: one lexsort of `raw` (key, payload)
-    records dominates. XLA's TPU sort is a multi-pass merge; traffic
-    ~ 2·raw·record·log2(raw)."""
+    records dominates; traffic ~ 2·raw·record·log2(raw)."""
     rec = 16.0
     passes = math.log2(max(raw, 2))
     return _stage(
         flops=raw * passes * 4,  # compare/permute ops, not FMA flops
         bytes_=2.0 * raw * rec * passes,
-        bound="sort-latency",
+        bound="sort",
         note=f"packed-key sort of {raw} records (~{passes:.0f} merge passes)",
     )
 
 
 def covariance_model(n: int, k: int) -> dict:
-    """GICP covariances: k-NN via approx_max_k over a blocked N×N distance
-    matmul (HIGH precision, 3 bf16 passes) + (k·27·N) moment accumulation
-    + 3×3 eigendecomposition per point (~250 flops)."""
-    matmul = 2.0 * 3 * n * n * 3  # cross-term, 3 passes
+    """GICP covariances: k-NN over a blocked N×N distance matmul (HIGH
+    precision) + top-k select + (k·27·N) moment accumulation + 3×3
+    eigendecomposition per point (~250 flops)."""
+    matmul = 2.0 * 3 * n * n
     topk = 2.0 * n * n            # compare/select
     moments = 27.0 * k * n + 250.0 * n
     block = 512.0
@@ -81,18 +88,18 @@ def covariance_model(n: int, k: int) -> dict:
     return _stage(
         flops=matmul + topk + moments,
         bytes_=bytes_,
-        bound="mxu-f32-high",
-        note=f"kNN(k={k}) matmul + moments at N={n}",
+        bound="fp32-cuda-core",
+        note=f"kNN(k={k}) matmul + top-k + moments at N={n}",
     )
 
 
 def icp_model(n: int, m: int, iterations: float, plane: bool,
               per_iter_nn: bool = True) -> dict:
     """GICP GN step: optional per-iteration NN sweep + SoA assembly
-    (~200 VPU flops/point for the fused 27-accumulator plane path,
-    ~60 for Kabsch) + one 6×6 solve (negligible)."""
+    (~200 flops/point for the fused 27-accumulator plane path, ~60 for
+    Kabsch) + one 6×6 solve (negligible)."""
     assembly = (200.0 if plane else 60.0) * n * iterations
-    out = _stage(0.0, 0.0, "vpu-issue", "")
+    out = _stage(0.0, 0.0, "fp32-cuda-core", "")
     if per_iter_nn:
         nn = nn_pairs_model(n, m, sweeps=iterations)
         out["flops"] = nn["flops"] + assembly
@@ -108,34 +115,36 @@ def icp_model(n: int, m: int, iterations: float, plane: bool,
 def scan_to_map_model(n: int, map_fill: int, iterations: float, plane: bool,
                       fixed_corr: bool) -> dict:
     """Refinement = one map-NN query (against the live fill, via
-    valid_len tile skipping) + the mapping ICP + one dedup/insert pass."""
+    valid_len) + the mapping ICP + one dedup/insert pass."""
     q = nn_pairs_model(n, max(map_fill, n))
     reg = icp_model(n, n, iterations, plane, per_iter_nn=not fixed_corr)
     insert = _stage(10.0 * n, 2.0 * n * 12 * _F32, "hbm", "append insert")
     return _stage(
         q["flops"] + reg["flops"] + insert["flops"],
         q["bytes"] + reg["bytes"] + insert["bytes"],
-        "vpu-issue" if not fixed_corr else "map-query+assembly",
+        "fp32-cuda-core" if not fixed_corr else "map-query+assembly",
         f"map NN at fill {map_fill} + {reg['note']}",
     )
 
 
-def achieved(model: dict, ms: float) -> dict:
-    """Fill in achieved rates + roofline fractions for a measured time."""
+def achieved(model: dict, ms: float, device_kind: Optional[str] = None) -> dict:
+    """Achieved rates for a measured time, and the fractions of the
+    device's peaks (None where the device or the unit has no peak)."""
     s = ms / 1e3
     gflops = model["flops"] / s / 1e9
     gbps = model["bytes"] / s / 1e9
-    peak_flops = {
-        "mxu-f32-high": V5E["mxu_f32_high_tflops"],
-        "mxu-f32-highest": V5E["mxu_f32_highest_tflops"],
-        "mxu-bf16": V5E["mxu_bf16_tflops"],
-    }.get(model["bound"], V5E["vpu_f32_tflops_approx"])
+    row = peaks(device_kind)
+    frac_hbm = frac_compute = None
+    if row is not None:
+        frac_hbm = round(gbps / row["hbm_gbps"], 4)
+        unit = _BOUND_UNIT.get(model["bound"], "fp32_cuda_core_tflops")
+        frac_compute = round(gflops / (row[unit] * 1e3), 4)
     return {
         "ms": round(ms, 3),
         "gflops": round(gflops, 1),
         "gbps": round(gbps, 2),
-        "frac_hbm": round(gbps / V5E["hbm_gbps"], 4),
-        "frac_compute": round(gflops / (peak_flops * 1e3), 4),
+        "frac_hbm": frac_hbm,
+        "frac_compute": frac_compute,
         "bound": model["bound"],
         "note": model["note"],
     }
@@ -151,6 +160,7 @@ def stage_rooflines(
     map_fill: int,
     plane: bool = True,
     mapping_fixed_corr: bool = True,
+    device_kind: Optional[str] = None,
 ) -> Dict[str, dict]:
     """Roofline report for the bench's per-stage timings."""
     models = {
@@ -162,7 +172,7 @@ def stage_rooflines(
         ),
     }
     return {
-        name: achieved(models[name], ms)
+        name: achieved(models[name], ms, device_kind)
         for name, ms in stage_ms.items()
         if name in models
     }

@@ -3,7 +3,7 @@
 The reference's only visualization is live rviz displays of its ~15 topics
 plus pose-graph MarkerArrays with id-ramped colors and elevated loop edges
 (``/root/reference/src/icpslam/icpslam.cpp:191-280``,
-``rviz/live_slam.rviz``). The TPU pipeline is headless; the equivalent
+``rviz/live_slam.rviz``). This pipeline is headless; the equivalent
 products are files any viewer (CloudCompare, meshlab, evo, a notebook)
 can read:
 

@@ -5,7 +5,7 @@ rendering the map cloud, trajectories, and pose-graph MarkerArrays with
 id-ramped node colors and elevated loop edges
 (``/root/reference/src/icpslam/icpslam.cpp:191-280``). This module writes
 the same picture as ONE self-contained HTML file (inline WebGL, no network,
-no external JS) so a headless TPU run remains inspectable anywhere a
+no external JS) so a headless GPU run remains inspectable anywhere a
 browser exists:
 
 - map point cloud, height-ramp colored

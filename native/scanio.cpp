@@ -2,7 +2,7 @@
 //
 // Host-side equivalent of the runtime/data-path work the reference does in
 // C++ (its whole tree is C++/ROS; scan ingest is the laserCloudCallback at
-// /root/reference/src/icpslam/icp_odometer.cpp:147). The TPU pipeline's
+// src/icpslam/icp_odometer.cpp:147 of the reference). The pipeline's
 // host loop must keep the device fed at 100+ scans/s; Python file IO +
 // numpy filtering becomes the bottleneck, so this library provides:
 //

@@ -274,13 +274,12 @@ class TestLinalg3:
 
 class TestRadiusCovariance:
     def test_moments_match_bruteforce(self):
-        from icpslam_tpu.ops.pallas import radius_stats_kernel as rsk
         rng = np.random.RandomState(0)
         pts = rng.uniform(-2, 2, (256, 3)).astype(np.float32)
         mask = np.ones(256, bool)
         mask[250:] = False
         r = 0.6
-        count, mean, cov = rsk.radius_moments_xla(
+        count, mean, cov = covariance.radius_moments(
             jnp.asarray(pts), jnp.asarray(pts), jnp.asarray(mask), r
         )
         for i in [0, 17, 99]:
@@ -292,15 +291,30 @@ class TestRadiusCovariance:
                 np.asarray(cov[i]), np.cov(nb.T, bias=True), atol=1e-4
             )
 
-    def test_pallas_interpret_matches_xla(self):
-        from icpslam_tpu.ops.pallas import radius_stats_kernel as rsk
-        rng = np.random.RandomState(1)
-        pts = jnp.asarray(rng.uniform(-2, 2, (256, 3)), jnp.float32)
-        mask = jnp.ones(256, bool)
-        ref = rsk.radius_moments_xla(pts, pts, mask, 0.5)
-        got = rsk.radius_moments(pts, pts, mask, 0.5, bq=256, bt=128, interpret=True)
-        for a, b in zip(got, ref):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-4)
+    @pytest.mark.parametrize("sigma", [0.0, 0.3], ids=["hard", "gaussian"])
+    def test_moments_far_from_origin_match_numpy(self, sigma):
+        # map frames drift far from the origin: the query-centroid
+        # re-centring keeps E[ppᵀ] − μμᵀ from cancelling
+        rng = np.random.RandomState(6)
+        pts = (rng.uniform(-2, 2, (300, 3)) + [400.0, -250.0, 30.0]).astype(
+            np.float32)
+        mask = rng.rand(300) > 0.1
+        r = 0.7
+        count, mean, cov = covariance.radius_moments(
+            jnp.asarray(pts), jnp.asarray(pts), jnp.asarray(mask), r,
+            sigma=sigma, block=128,
+        )
+        p64 = pts.astype(np.float64)[mask]
+        for i in [3, 50, 211]:
+            d2 = np.sum((p64 - pts[i].astype(np.float64)) ** 2, axis=-1)
+            w = (d2 < r * r).astype(np.float64)
+            if sigma > 0:
+                w = w * np.exp(-d2 / (2 * sigma**2))
+            m = (w[:, None] * p64).sum(0) / w.sum()
+            c = np.einsum("n,ni,nj->ij", w, p64 - m, p64 - m) / w.sum()
+            np.testing.assert_allclose(float(count[i]), w.sum(), rtol=1e-4)
+            np.testing.assert_allclose(np.asarray(mean[i]), m, atol=1e-3)
+            np.testing.assert_allclose(np.asarray(cov[i]), c, atol=2e-3)
 
     def test_planar_normals(self):
         rng = np.random.RandomState(2)
@@ -311,13 +325,12 @@ class TestRadiusCovariance:
         np.testing.assert_allclose(np.abs(vecs[:, 2, 0]), 1.0, atol=1e-2)
 
     def test_gaussian_moments_match_bruteforce(self):
-        from icpslam_tpu.ops.pallas import radius_stats_kernel as rsk
         rng = np.random.RandomState(3)
         pts = rng.uniform(-2, 2, (256, 3)).astype(np.float32)
         mask = np.ones(256, bool)
         mask[250:] = False
         r, sigma = 0.6, 0.3
-        count, mean, cov = rsk.radius_moments_xla(
+        count, mean, cov = covariance.radius_moments(
             jnp.asarray(pts), jnp.asarray(pts), jnp.asarray(mask), r, sigma=sigma
         )
         for i in [0, 17, 99]:
@@ -331,18 +344,6 @@ class TestRadiusCovariance:
             np.testing.assert_allclose(float(count[i]), sw, rtol=1e-4)
             np.testing.assert_allclose(np.asarray(mean[i]), m, atol=1e-4)
             np.testing.assert_allclose(np.asarray(cov[i]), c, atol=1e-4)
-
-    def test_gaussian_pallas_interpret_matches_xla(self):
-        from icpslam_tpu.ops.pallas import radius_stats_kernel as rsk
-        rng = np.random.RandomState(4)
-        pts = jnp.asarray(rng.uniform(-2, 2, (256, 3)), jnp.float32)
-        mask = jnp.ones(256, bool)
-        ref = rsk.radius_moments_xla(pts, pts, mask, 0.5, sigma=0.25)
-        got = rsk.radius_moments(
-            pts, pts, mask, 0.5, sigma=0.25, bq=256, bt=128, interpret=True
-        )
-        for a, b in zip(got, ref):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-4)
 
     def test_gaussian_planar_normals(self):
         # noisy plane: the Gaussian taper must still recover the normal

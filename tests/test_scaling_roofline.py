@@ -2,6 +2,7 @@
 harness (BASELINE metric 4) and the speed-of-light accounting."""
 
 import numpy as np
+import pytest
 
 from icpslam_tpu.utils import roofline
 
@@ -44,6 +45,9 @@ class TestScalingHarness:
         assert [r["devices"] for r in rungs] == [1]
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
 class TestRoofline:
     def test_stage_models_yield_sane_fractions(self):
         report = roofline.stage_rooflines(
@@ -51,6 +55,7 @@ class TestRoofline:
              "icp_odometry": 3.6, "scan_to_map_refine": 13.6},
             raw_points=32768, n_points=8192, covariance_knn=10,
             odo_iterations=5.0, map_iterations=30.0, map_fill=12075,
+            device_kind=H100,
         )
         assert set(report) == {
             "voxel_filter", "covariances", "icp_odometry", "scan_to_map_refine"
@@ -63,8 +68,8 @@ class TestRoofline:
 
     def test_faster_stage_scores_higher_fraction(self):
         m = roofline.nn_pairs_model(8192, 8192)
-        fast = roofline.achieved(m, 0.26)
-        slow = roofline.achieved(m, 1.09)
+        fast = roofline.achieved(m, 0.26, H100)
+        slow = roofline.achieved(m, 1.09, H100)
         assert fast["frac_compute"] > slow["frac_compute"]
         assert fast["gbps"] > slow["gbps"]
 
@@ -73,3 +78,17 @@ class TestRoofline:
         without = roofline.icp_model(8192, 8192, 10, plane=True, per_iter_nn=False)
         assert without["flops"] < with_nn["flops"] / 10
         assert without["bytes"] < with_nn["bytes"]
+
+    def test_h100_peaks_are_the_data_sheet(self):
+        row = roofline.peaks(H100)
+        assert row["hbm_gbps"] == 3350.0
+        assert row["bf16_tensor_tflops"] == 989.0
+        assert row["tf32_tensor_tflops"] == 495.0
+        assert row["fp32_cuda_core_tflops"] == 67.0
+
+    @pytest.mark.parametrize("kind", [None, "cpu", "TFRT_CPU_0", "NVIDIA A100"])
+    def test_unknown_device_gets_no_fraction(self, kind):
+        assert roofline.peaks(kind) is None
+        r = roofline.achieved(roofline.nn_pairs_model(8192, 8192), 0.5, kind)
+        assert r["frac_hbm"] is None and r["frac_compute"] is None
+        assert r["gflops"] > 0  # achieved rates are still reported

@@ -64,8 +64,8 @@ def drive(cfg, scans, gt, mesh=None):
         # and a deep async queue of 8-device shard_map steps can starve
         # it (3/8 participants arrive → 40 s timeout → SIGABRT; see
         # tools/xla_cpu_collective_deadlock_repro.py). ~16 in flight is
-        # reliably safe on this host; real TPU meshes don't rendezvous
-        # through a thread pool and need no such bound.
+        # reliably safe on this host; GPU meshes hand collectives to NCCL
+        # and do not rendezvous through a host thread pool.
         if i % 8 == 7:
             jax.block_until_ready(st)
     # Consolidate the trajectory HOST-side: an eager se3.stack over the

@@ -14,9 +14,9 @@ artifact JSON proving:
 - late-mission throughput measured on the resumed half (the store is
   ≥ half full for all of it)
 
-Usage (TPU, ~15 min incl. first render + compiles):
+Usage (on the GPU; the first run renders the scans and compiles):
     python tools/endurance.py --scans 2000 \
-        --cache /tmp/proxy2000.npz --out artifacts/endurance_2000.json
+        --cache .smoke/proxy2000.npz --out artifacts/endurance_2000.json
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ def run_runner(args: list, timeout: float = 3000.0) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--scans", type=int, default=2000)
-    ap.add_argument("--cache", type=str, default="/tmp/proxy2000.npz")
+    ap.add_argument("--cache", type=str,
+                    default=os.path.join(REPO, ".smoke", "proxy2000.npz"))
     ap.add_argument("--out", type=str, default="artifacts/endurance_2000.json")
     args = ap.parse_args()
 
@@ -171,9 +172,7 @@ def main() -> int:
             "dispatched async + folded back, pipeline/deferred.py). "
             "Compare step/wall stats against full_run to settle the "
             "deferred mode's loop-closure-dense niche claim (DESIGN "
-            "§15); same-session ordering caveat: the tunnel service "
-            "degrades across consecutive runs (DESIGN §19), so compare "
-            "against the adjacent runs, not the first",
+            "§15)",
         },
     }
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -9,7 +9,7 @@ Reuses a proxy scan cache (``tools/endurance.py`` / ``runner
 physics (motion smear, range noise, dropout, traffic); the run enables
 the no-INS coupled de-skew.
 
-    python tools/kitti_tree_run.py --cache /tmp/proxy2000.npz \
+    python tools/kitti_tree_run.py --cache .smoke/proxy2000.npz \
         --out artifacts/kitti_tree_2000.json
 """
 
@@ -29,7 +29,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--cache", type=str, default="/tmp/proxy2000.npz")
+    ap.add_argument("--cache", type=str,
+                    default=os.path.join(REPO, ".smoke", "proxy2000.npz"))
     ap.add_argument("--out", type=str, default="artifacts/kitti_tree_2000.json")
     ap.add_argument("--scans", type=int, default=None,
                     help="limit (default: whole cache)")
